@@ -4,7 +4,8 @@ build over 2^20..2^24 points and 4 selection policies;
 benchmark_insertion.cpp:253-274 measures leaf-scan throughput).
 
 Here: cell-list build across occupancies (the selection-policy analog is the
-occupancy/leafsize trade), and query throughput across k and engine paths.
+occupancy/leafsize trade), and query throughput across k for the host-chunked
+``query`` and the device-resident ``query_device``.
 
 Usage: python benchmarks/bench_knn.py [--quick]
 """
@@ -17,8 +18,8 @@ import numpy as np
 
 
 def bench_build(sizes, occupancies):
-    from nbodyhpc_tpu.core.cells import build_cell_list
-    from nbodyhpc_tpu.utils.philox import random_points
+    from nbodyhpc_jax.core.cells import build_cell_list
+    from nbodyhpc_jax.utils.philox import random_points
 
     print("== build (cell list) ==")
     for n in sizes:
@@ -32,23 +33,28 @@ def bench_build(sizes, occupancies):
 
 
 def bench_query(n, nq, ks):
-    from nbodyhpc_tpu.kdtree import KDTree
-    from nbodyhpc_tpu.ops import knn
-    from nbodyhpc_tpu.utils.philox import random_points
+    import jax
+
+    from nbodyhpc_jax.kdtree import KDTree
+    from nbodyhpc_jax.ops import knn
+    from nbodyhpc_jax.utils.philox import random_points
 
     print("== query ==")
     pts = random_points(int(n), seed=2)
     tree = KDTree(pts)
     q = pts[: int(nq)]
+    qd = jax.numpy.asarray(q)
     for k in ks:
-        for path in ("auto", "never"):
-            knn.cell_knn_query(tree._tree, tree._dev, q[:4096], k,
-                               use_kernel=path)  # warm
-            t0 = time.perf_counter()
-            knn.cell_knn_query(tree._tree, tree._dev, q, k, use_kernel=path)
-            dt = time.perf_counter() - t0
-            print(f"  k={k:>3} path={path:>5}: {dt:.3f}s "
-                  f"({len(q)/dt:.0f} q/s)")
+        knn.cell_knn_query(tree._tree, tree._dev, q[:4096], k)  # warm
+        t0 = time.perf_counter()
+        knn.cell_knn_query(tree._tree, tree._dev, q, k)
+        dt = time.perf_counter() - t0
+        print(f"  k={k:>3} query (numpy): {dt:.3f}s ({len(q)/dt:.0f} q/s)")
+        tree.query_device(qd, k=k)[0].block_until_ready()  # warm
+        t0 = time.perf_counter()
+        tree.query_device(qd, k=k)[0].block_until_ready()
+        dt = time.perf_counter() - t0
+        print(f"  k={k:>3} query_device: {dt:.3f}s ({len(q)/dt:.0f} q/s)")
 
 
 def bench_ball(n=1e7, nq=1e5, mean_count=32.0, parity_q=512):
@@ -60,8 +66,8 @@ def bench_ball(n=1e7, nq=1e5, mean_count=32.0, parity_q=512):
     import jax
     import jax.numpy as jnp
 
-    from nbodyhpc_tpu.kdtree import KDTree
-    from nbodyhpc_tpu.utils.philox import random_points
+    from nbodyhpc_jax.kdtree import KDTree
+    from nbodyhpc_jax.utils.philox import random_points
 
     print("== ball count (radius queries) ==")
     n, nq = int(n), int(nq)
@@ -93,7 +99,7 @@ def bench_ball(n=1e7, nq=1e5, mean_count=32.0, parity_q=512):
 def bench_roofline(nbytes=1 << 28, rows=1 << 16, cands=512, reps=5):
     """Device rooflines framing the query numbers, the analog of the
     reference's Memcpy / ReduceDistance baselines
-    (benchmark_insertion.cpp:253-274): (a) HBM copy bandwidth, (b) the
+    (benchmark_insertion.cpp:253-274): (a) device-memory copy bandwidth, (b) the
     leaf-scan kernel's idealized form — per row, evaluate ``cands``
     squared distances and reduce to the min — which bounds any candidate
     scan at this (rows, candidates) shape."""

@@ -1,20 +1,20 @@
-"""Sharded-tree overhead vs the replicated path on ONE chip.
+"""Sharded-tree overhead vs the replicated path on ONE device.
 
 The slab-sharded tree (parallel/tree_sharded.py) exists to scale past one
-chip's HBM; its cost model on a single chip is what multi-chip projections
-build on (VERDICT r4 #5). This bench builds the same point set both ways
-on the real device and reports build + query rates:
+device's memory; its cost model on a single device is what multi-device
+projections build on. This bench builds the same point set both ways on
+the GPU and reports build + query rates:
 
-- replicated: `KDTree(points_jax).query_device` (the Pallas-kernel
-  production path, PERF.md §2)
+- replicated: `KDTree(points_jax).query_device` (the expanding-cube
+  ladder)
 - sharded(1): `build_tree_sharded` + `knn_query_tree_sharded` on a
   1-device mesh — every cross-shard mechanism (routing sort, shard rows,
   hop ladder bookkeeping) still runs, so replicated/sharded(1) is the
   pure overhead of the sharding machinery.
 
 Usage: python benchmarks/bench_tree_sharded.py [n] [nq] [k]
-Defaults match the PERF.md §2 workload (1e7 points, 5e5 self-queries,
-k=16). Committed results live in benchmarks/RESULTS.md.
+Defaults match the PERF.md kNN workload (1e7 points, 5e5 self-queries,
+k=16).
 """
 import sys
 import time
@@ -23,12 +23,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-
 def sync(x):
-    return float(jnp.asarray(x).reshape(-1)[0])
+    return jnp.asarray(x).block_until_ready()
 
 
 def main():
@@ -38,9 +34,9 @@ def main():
 
     import jax.random as jr
 
-    from nbodyhpc_tpu.kdtree import KDTree
-    from nbodyhpc_tpu.parallel.mesh import make_slab_mesh
-    from nbodyhpc_tpu.parallel.tree_sharded import (
+    from nbodyhpc_jax.kdtree import KDTree
+    from nbodyhpc_jax.parallel.mesh import make_slab_mesh
+    from nbodyhpc_jax.parallel.tree_sharded import (
         build_tree_sharded,
         knn_query_tree_sharded,
     )

@@ -1,7 +1,7 @@
-/* nbodyhpc_tpu._hostio — native host-side runtime: particle file IO and
+/* nbodyhpc_jax._hostio — native host-side runtime: particle file IO and
  * deterministic parallel data generation.
  *
- * TPU-native counterpart of the reference's native CPU runtime pieces:
+ * Counterpart of the reference's native CPU runtime pieces:
  *  - raw particle file loading (reference: kdtree/src/cpp/main.cpp:103-114
  *    reads packed float3; rasterization/src/cpp/main.cpp:86-101 reads packed
  *    Vertex{pos[3], weight, radius} records) — here via mmap + one memcpy
@@ -434,97 +434,6 @@ static PyObject *hostio_stream_open(PyObject *self, PyObject *args) {
     return (PyObject *)ld;
 }
 
-/* --------------------------- first-fit pack ----------------------------- */
-
-static PyObject *hostio_first_fit_pack(PyObject *self, PyObject *args) {
-    /* first_fit_pack(psz int64[n], porder int64[n], cap, gmax)
-     *   -> (nb, blk int64[n], slot_base int64[n], gslot int64[n])
-     *
-     * The k-NN block packer's inner loop (ops/knn_pallas.py:build_blocks):
-     * walk pieces in the given order, open a new block whenever the current
-     * one holds gmax pieces or would exceed cap query slots. Inherently
-     * sequential (each decision depends on the running fill), which is why
-     * it lives here: the Python loop is ~1.1 s at 5e5 queries; this is ~1 ms.
-     */
-    PyObject *psz_o, *porder_o;
-    Py_ssize_t cap, gmax;
-    if (!PyArg_ParseTuple(args, "OOnn", &psz_o, &porder_o, &cap, &gmax))
-        return NULL;
-    if (cap <= 0 || gmax <= 0) {
-        PyErr_SetString(PyExc_ValueError, "cap and gmax must be positive");
-        return NULL;
-    }
-    PyArrayObject *psz = (PyArrayObject *)PyArray_FROM_OTF(
-        psz_o, NPY_INT64, NPY_ARRAY_IN_ARRAY);
-    PyArrayObject *porder = (PyArrayObject *)PyArray_FROM_OTF(
-        porder_o, NPY_INT64, NPY_ARRAY_IN_ARRAY);
-    if (!psz || !porder) {
-        Py_XDECREF(psz);
-        Py_XDECREF(porder);
-        return NULL;
-    }
-    npy_intp n = PyArray_SIZE(psz);
-    if (PyArray_SIZE(porder) != n) {
-        Py_DECREF(psz);
-        Py_DECREF(porder);
-        PyErr_SetString(PyExc_ValueError, "psz and porder length mismatch");
-        return NULL;
-    }
-    npy_intp dims[1] = {n};
-    PyArrayObject *blk =
-        (PyArrayObject *)PyArray_SimpleNew(1, dims, NPY_INT64);
-    PyArrayObject *sbase =
-        (PyArrayObject *)PyArray_SimpleNew(1, dims, NPY_INT64);
-    PyArrayObject *gslot =
-        (PyArrayObject *)PyArray_SimpleNew(1, dims, NPY_INT64);
-    if (!blk || !sbase || !gslot) {
-        Py_DECREF(psz);
-        Py_DECREF(porder);
-        Py_XDECREF(blk);
-        Py_XDECREF(sbase);
-        Py_XDECREF(gslot);
-        return NULL;
-    }
-    const int64_t *sz = (const int64_t *)PyArray_DATA(psz);
-    const int64_t *po = (const int64_t *)PyArray_DATA(porder);
-    int64_t *b = (int64_t *)PyArray_DATA(blk);
-    int64_t *sb = (int64_t *)PyArray_DATA(sbase);
-    int64_t *gs = (int64_t *)PyArray_DATA(gslot);
-    int64_t cur_b = 0, cur_fill = 0, cur_n = 0;
-    int bad = 0;
-    for (npy_intp i = 0; i < n; i++) {
-        int64_t p = po[i];
-        if (p < 0 || p >= n) {
-            bad = 1;
-            break;
-        }
-        int64_t s = sz[p];
-        if (cur_n == (int64_t)gmax || cur_fill + s > (int64_t)cap) {
-            cur_b++;
-            cur_fill = 0;
-            cur_n = 0;
-        }
-        b[p] = cur_b;
-        sb[p] = cur_fill;
-        gs[p] = cur_n;
-        cur_fill += s;
-        cur_n += 1;
-    }
-    Py_DECREF(psz);
-    Py_DECREF(porder);
-    if (bad) {
-        Py_DECREF(blk);
-        Py_DECREF(sbase);
-        Py_DECREF(gslot);
-        PyErr_SetString(PyExc_ValueError, "porder index out of range");
-        return NULL;
-    }
-    PyObject *out = Py_BuildValue(
-        "LNNN", (long long)(n ? cur_b + 1 : 1), (PyObject *)blk,
-        (PyObject *)sbase, (PyObject *)gslot);
-    return out;
-}
-
 /* ------------------------------ module --------------------------------- */
 
 static PyMethodDef hostio_methods[] = {
@@ -538,14 +447,11 @@ static PyMethodDef hostio_methods[] = {
     {"stream_open", hostio_stream_open, METH_VARARGS,
      "stream_open(path, ncols, chunk_rows) -> Loader (double-buffered "
      "prefetching record stream)."},
-    {"first_fit_pack", hostio_first_fit_pack, METH_VARARGS,
-     "first_fit_pack(psz, porder, cap, gmax) -> (nb, blk, slot_base, "
-     "gslot); sequential first-fit bin packing for the k-NN block build."},
     {NULL, NULL, 0, NULL}};
 
 static struct PyModuleDef hostio_module = {
     PyModuleDef_HEAD_INIT, "_hostio",
-    "Native host IO / data generation for nbodyhpc_tpu", -1, hostio_methods};
+    "Native host IO / data generation for nbodyhpc_jax", -1, hostio_methods};
 
 PyMODINIT_FUNC PyInit__hostio(void) {
     import_array();

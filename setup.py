@@ -1,7 +1,7 @@
 """Build driver: pure-Python package plus the optional native _hostio
 extension (C, CPython API). The extension is best-effort — environments
 without a toolchain still get the full framework with numpy fallbacks
-(see nbodyhpc_tpu/runtime/__init__.py)."""
+(see nbodyhpc_jax/runtime/__init__.py)."""
 import numpy as np
 from setuptools import Extension, setup
 from setuptools.command.build_ext import build_ext
@@ -25,7 +25,7 @@ class OptionalBuildExt(build_ext):
 setup(
     ext_modules=[
         Extension(
-            "nbodyhpc_tpu._hostio",
+            "nbodyhpc_jax._hostio",
             sources=["csrc/hostio.c"],
             include_dirs=[np.get_include()],
             extra_compile_args=["-O3", "-march=native", "-pthread"],

@@ -3,9 +3,9 @@
 The reference polls ``PyErr_CheckSignals`` every 1000 queries inside the GIL-
 released query fan-out (reference: kdtree/src/cpp/pybind.cpp:127-134) and in
 20 ms fence-wait slices during rendering (rasterization/src/cpp/
-point_renderer.cpp:797-818). The TPU design's analog is its host-chunked
-loops: every chunk boundary performs a blocking device sync (``np.asarray``)
-at which Python delivers pending signals. This test pins that contract by
+point_renderer.cpp:797-818). This design's analog is its host-chunked
+loops: every chunk boundary performs a blocking device sync at which Python
+delivers pending signals. This test pins that contract by
 actually sending SIGINT to a subprocess mid-query and asserting a prompt,
 clean KeyboardInterrupt — not a hang, not a crash."""
 import os
@@ -20,8 +20,8 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
-from nbodyhpc_tpu.kdtree import KDTree
-from nbodyhpc_tpu.ops.knn import cell_knn_query
+from nbodyhpc_jax.kdtree import KDTree
+from nbodyhpc_jax.ops.knn import cell_knn_query
 
 rng = np.random.Generator(np.random.Philox(5))
 pts = rng.random((50000, 3)).astype(np.float32)
@@ -48,7 +48,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
-from nbodyhpc_tpu.rasterizer import render_points_volume
+from nbodyhpc_jax.rasterizer import render_points_volume
 
 rng = np.random.Generator(np.random.Philox(9))
 n = 2_000_000
@@ -72,7 +72,7 @@ except KeyboardInterrupt:
 
 def _run_sigint_child(child_src):
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
+    env["JAX_PLATFORMS"] = "cpu"  # the child never opens a card
     p = subprocess.Popen(
         [sys.executable, "-c", child_src],
         stdout=subprocess.PIPE,

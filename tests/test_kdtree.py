@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import scipy.spatial
 
-from nbodyhpc_tpu.kdtree import KDTree
-from nbodyhpc_tpu.ops import knn as _knn
+from nbodyhpc_jax.kdtree import KDTree
+from nbodyhpc_jax.ops import knn as _knn
 
 
 def _random_points(n, seed, box=1.0):
@@ -177,7 +177,7 @@ def test_ball_count_cell_engine_vs_dense():
     """The cell-cube engine (small radii) must agree exactly with the dense
     O(N*Q) scan on the same tree — including per-query radii, clustered
     data, and queries outside the data extent."""
-    from nbodyhpc_tpu.ops import ball
+    from nbodyhpc_jax.ops import ball
 
     rng = np.random.Generator(np.random.Philox(81))
     # clustered: half uniform, half in a tight blob (stresses ccap sizing)
@@ -212,7 +212,7 @@ def test_ball_count_periodic_cube_wrap():
     box = 1.0
     points = _random_points(800, 82, box=box)
     queries = _random_points(24, 83, box=box)
-    from nbodyhpc_tpu.ops import ball
+    from nbodyhpc_jax.ops import ball
 
     tree = KDTree(points, boxsize=box)
     counts = ball.ball_count(tree._tree, tree._dev, queries, 0.4, engine="cells")
@@ -230,7 +230,7 @@ def test_far_outside_queries_hit_fallback():
     far = (rng.random((8, 3)) * 3.0 + 100.0).astype(np.float32)
     tree = KDTree(pts)
     d, i = tree.query(far, k=3)
-    from nbodyhpc_tpu.ops.knn import brute_force_knn
+    from nbodyhpc_jax.ops.knn import brute_force_knn
 
     bd, bi = brute_force_knn(pts, far, 3)
     np.testing.assert_array_equal(i, np.asarray(bi).astype(np.uint32))
@@ -255,7 +255,7 @@ def test_clustered_points_escalation():
 
 
 def test_device_build_matches_host_build():
-    from nbodyhpc_tpu.core.cells import build_cell_list
+    from nbodyhpc_jax.core.cells import build_cell_list
 
     pts = _random_points(5000, 91)
     th = build_cell_list(pts, device=False)
@@ -268,7 +268,7 @@ def test_device_build_matches_host_build():
     assert td.max_cell_count == th.max_cell_count
 
     # and queries agree end-to-end
-    from nbodyhpc_tpu.ops import knn
+    from nbodyhpc_jax.ops import knn
 
     q = _random_points(200, 92)
     rh = knn.cell_knn_query(th, tuple(map(np.asarray, (th.xyz, th.index, th.offsets))), q, 4)
@@ -285,7 +285,7 @@ def test_device_resident_points_build():
     raises, non-periodic extent deduced on device."""
     import jax.numpy as jnp
 
-    from nbodyhpc_tpu.kdtree import KDTree
+    from nbodyhpc_jax.kdtree import KDTree
 
     pts = _random_points(4000, 93)
     q = _random_points(150, 94)
@@ -325,15 +325,13 @@ def test_boundary_cell_convergence_small_dims():
 
 def test_kernel_path_tiny_periodic_dims_no_duplicates():
     """Regression: periodic trees with < 3 cells in x/y alias wrapped
-    neighbor columns in the kernel's block builder (duplicate candidates);
-    such trees must be answered by the exact ladder instead."""
+    neighbor columns; the ladder must answer them exactly, with no
+    neighbor twice."""
     rng = np.random.Generator(np.random.Philox(7))
     pts = rng.random((64, 3), dtype=np.float32)  # dims ~ (2, 2, 2)
     tree = KDTree(pts, boxsize=1.0)
     q = pts[:8]
-    res = _knn.cell_knn_query(
-        tree._tree, tree._dev, q, 4, use_kernel="force"
-    )
+    res = _knn.cell_knn_query(tree._tree, tree._dev, q, 4)
     from scipy.spatial import KDTree as SKD
 
     dref, iref = SKD(pts.astype(np.float64), boxsize=1.0).query(q, k=4)
@@ -353,7 +351,6 @@ def test_large_ladder_budget_end_of_array_cells():
     q = pts[:64]
     res = _knn.cell_knn_query(
         tree._tree, tree._dev, q, 4, ladder=((1, 4096), (4, 4096)),
-        use_kernel="never",
     )
     dref, iref = tree.query(q, k=4)
     np.testing.assert_allclose(res.distances, dref, rtol=1e-6)
@@ -366,7 +363,7 @@ def test_metrics_zero_box_degrades_to_plain_l2():
     instead of producing NaN from a division by zero."""
     import jax.numpy as jnp
 
-    from nbodyhpc_tpu.ops import metrics
+    from nbodyhpc_jax.ops import metrics
 
     a = jnp.asarray([[0.9, 0.2, 0.7]], jnp.float32)
     b = jnp.asarray([[0.1, 0.9, 0.1]], jnp.float32)

@@ -1,7 +1,7 @@
 """Host-runtime tests: native _hostio extension (when built) and fallbacks."""
 import numpy as np
 
-from nbodyhpc_tpu import runtime
+from nbodyhpc_jax import runtime
 
 
 def test_generate_uniform_deterministic():
@@ -53,7 +53,7 @@ def test_field_save_load_roundtrip(tmp_path):
 
 
 def test_profiling_timer():
-    from nbodyhpc_tpu.utils.profiling import timer
+    from nbodyhpc_jax.utils.profiling import timer
 
     out = []
     with timer("x", sink=out.append) as box:
@@ -64,7 +64,7 @@ def test_profiling_timer():
 def test_stream_particles_matches_bulk_load(tmp_path):
     """The double-buffered streaming loader must reproduce the bulk read,
     including ragged final batches and multiple concurrent streams."""
-    from nbodyhpc_tpu import runtime
+    from nbodyhpc_jax import runtime
 
     rng = np.random.Generator(np.random.Philox(23))
     n = 10_000

@@ -7,13 +7,13 @@ import jax
 import numpy as np
 import pytest
 
-from nbodyhpc_tpu.kdtree import KDTree
-from nbodyhpc_tpu.parallel.mesh import make_slab_mesh
-from nbodyhpc_tpu.parallel.sharded import (
+from nbodyhpc_jax.kdtree import KDTree
+from nbodyhpc_jax.parallel.mesh import make_slab_mesh
+from nbodyhpc_jax.parallel.sharded import (
     knn_query_sharded,
     render_points_volume_sharded,
 )
-from nbodyhpc_tpu.rasterizer import render_points_volume
+from nbodyhpc_jax.rasterizer import render_points_volume
 
 
 @pytest.fixture(scope="module")
@@ -52,7 +52,6 @@ def test_sharded_render_periodic(mesh):
     np.testing.assert_allclose(vol.sum(), w.sum(), rtol=5e-3)
 
 
-@pytest.mark.slow
 def test_sharded_render_boundary_straddlers(mesh):
     """Particles placed exactly on slab boundaries are counted exactly once."""
     nd = 8
@@ -69,11 +68,9 @@ def test_sharded_render_boundary_straddlers(mesh):
     np.testing.assert_allclose(vol, ref, rtol=2e-5, atol=1e-6)
 
 
-@pytest.mark.slow
 def test_sharded_render_mid_radius_bucket(mesh):
-    """Radii reaching into the 16^3 kernel bucket ((3, 7] px) run the
-    two-bucket Pallas engine per shard and must match the single-device
-    render across slab boundaries."""
+    """Radii up to 6.5 px span several radius classes per shard and must
+    match the single-device render across slab boundaries."""
     rng = np.random.Generator(np.random.Philox(31))
     n = 400
     pos = rng.random((n, 3)).astype(np.float32)
@@ -88,11 +85,9 @@ def test_sharded_render_mid_radius_bucket(mesh):
     np.testing.assert_allclose(vol, ref, rtol=2e-5, atol=1e-6)
 
 
-@pytest.mark.slow
 def test_sharded_render_dense_tail(mesh):
-    """Radii beyond the engine's 7 px ceiling route to the per-shard dense
-    large-radius pass (ops/splat_dense.py), composed with the engine
-    buckets for the small part of the workload."""
+    """Radii up to 9 px (footprints deeper than a 4-voxel slab) need
+    multi-hop halos and still match the single-device render."""
     rng = np.random.Generator(np.random.Philox(33))
     n = 40
     pos = rng.random((n, 3)).astype(np.float32)
@@ -107,7 +102,6 @@ def test_sharded_render_dense_tail(mesh):
     np.testing.assert_allclose(vol, ref, rtol=2e-5, atol=1e-6)
 
 
-@pytest.mark.slow
 def test_sharded_render_31px_mixed(mesh):
     """Mixed workload whose largest footprint (31 px radius) spans many
     slabs: multi-hop halo exchange + dense pass must stay exact."""
@@ -118,7 +112,7 @@ def test_sharded_render_31px_mixed(mesh):
     ppu = 32.0
     r = np.concatenate(
         [
-            ((0.5 + rng.random(16) * 4.0) / ppu),  # engine buckets
+            ((0.5 + rng.random(16) * 4.0) / ppu),  # window classes
             ((20.0 + rng.random(8) * 11.0) / ppu),  # dense, up to 31 px
         ]
     ).astype(np.float32)
@@ -132,10 +126,10 @@ def test_sharded_render_31px_mixed(mesh):
 
 def test_sharded_render_device_inputs_streamed_batches(mesh):
     """Device-resident inputs take the all-device path (ghost augmentation +
-    slab partition in HBM, host sees only per-slab counts), and a deliberately
-    tiny ``batch`` forces every shard through MULTIPLE accumulate dispatches
-    of the traced engine — the memory-bounded streaming the reference gets
-    from per-slice draw ranges (point_renderer.cpp:864-946)."""
+    slab partition in device memory, host sees only per-slab counts), and a
+    deliberately tiny ``batch`` forces every shard through MULTIPLE class
+    batches of the traced engine — the memory-bounded streaming the
+    reference gets from per-slice draw ranges (point_renderer.cpp:864-946)."""
     import jax.numpy as jnp
 
     pos, w, r = _particles(3000, 21)
@@ -181,7 +175,7 @@ def test_query_device_large_batch_chunked():
     answers must stay exact, including the non-multiple tail padding."""
     import jax.numpy as jnp
 
-    from nbodyhpc_tpu.ops import knn as _knn
+    from nbodyhpc_jax.ops import knn as _knn
 
     pos, _, _ = _particles(3000, 16)
     tree = KDTree(pos, boxsize=1.0)
@@ -218,7 +212,7 @@ def test_sharded_knn_periodic(mesh):
 
 
 def test_sharded_knn_cdf_matches_host(mesh):
-    from nbodyhpc_tpu.parallel.stats import knn_cdf_sharded
+    from nbodyhpc_jax.parallel.stats import knn_cdf_sharded
 
     pos, _, _ = _particles(4000, 9)
     tree = KDTree(pos, boxsize=1.0)

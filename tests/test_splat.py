@@ -12,8 +12,8 @@ import math
 import numpy as np
 import pytest
 
-from nbodyhpc_tpu.ops.splat import splat_2d_oracle, splat_volume_oracle
-from nbodyhpc_tpu.rasterizer import (
+from nbodyhpc_jax.ops.splat import splat_2d_oracle, splat_volume_oracle
+from nbodyhpc_jax.rasterizer import (
     render_points,
     render_points_volume,
 )
@@ -130,7 +130,7 @@ def test_periodic_mass_conservation_corner():
 
 
 def test_periodic_equals_manual_ghosts():
-    from nbodyhpc_tpu.ops.ghosts import augment_points_periodic
+    from nbodyhpc_jax.ops.ghosts import augment_points_periodic
 
     rng = np.random.Generator(np.random.Philox(7))
     n = 20
@@ -147,7 +147,7 @@ def test_periodic_equals_manual_ghosts():
 def test_device_ghost_augmentation_matches_host():
     import jax.numpy as jnp
 
-    from nbodyhpc_tpu.ops.ghosts import (
+    from nbodyhpc_jax.ops.ghosts import (
         augment_points_periodic,
         augment_points_periodic_device,
     )
@@ -249,7 +249,7 @@ def test_validation_container_is_scoped():
     set jax_debug_nans for the whole process and never restored it)."""
     import jax
 
-    from nbodyhpc_tpu.rasterizer import Container, PointRenderer
+    from nbodyhpc_jax.rasterizer import Container, PointRenderer
 
     c = Container(enable_validation_layers=True)
     pr = PointRenderer(c, 8, 8)
@@ -266,7 +266,7 @@ def test_validation_container_is_scoped():
 
 
 def test_renderer_cache():
-    from nbodyhpc_tpu.rasterizer import get_point_renderer
+    from nbodyhpc_jax.rasterizer import get_point_renderer
 
     r1 = get_point_renderer((16, 16))
     r2 = get_point_renderer((16, 16))
@@ -283,7 +283,7 @@ def test_device_ghost_aug_one_sync_corner_multiplicities():
     of one dimension."""
     import jax.numpy as jnp
 
-    from nbodyhpc_tpu.ops.ghosts import (
+    from nbodyhpc_jax.ops.ghosts import (
         augment_points_periodic,
         augment_points_periodic_device,
     )

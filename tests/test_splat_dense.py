@@ -1,18 +1,18 @@
 """Dense large-radius deposition (ops/splat_dense.py) vs the oracle.
 
 The reference renders arbitrarily large points (unbounded gl_PointSize,
-rasterization/shaders/triangle.vert:43-44,63); the TPU engine's Pallas
-bucket ladder stops at 15 px (G32), so radii above that take the dense
-clamped-window pass. These tests pin (a) bit-level parity of the dense
-evaluator with the oracle, including window clamping at grid edges, (b)
-the mixed-radius routing in splat_volume (device-resident and numpy
-paths), and (c) the halfwidth bucket ladder.
+rasterization/shaders/triangle.vert:43-44,63); the deposit engine's radius
+classes stop at 15 px, so radii above that take the dense clamped-window
+pass. These tests pin (a) bit-level parity of the dense evaluator with the
+oracle, including window clamping at grid edges, (b) the mixed-radius
+routing in the deposit engine (device-resident and numpy paths), and (c)
+the halfwidth bucket ladder.
 """
 import numpy as np
 import pytest
 
-from nbodyhpc_tpu.ops.splat import required_halfwidth, splat_volume_oracle
-from nbodyhpc_tpu.ops.splat_dense import (
+from nbodyhpc_jax.ops.splat import required_halfwidth, splat_volume_oracle
+from nbodyhpc_jax.ops.splat_dense import (
     HALF_BUCKETS,
     dense_halfwidth,
     splat_volume_dense,
@@ -32,7 +32,7 @@ def _quantum_atol(w, rpx, subsample=4):
     """One knife-edge subcell quantum: max over large particles of
     w / (4/3 pi rpx^3) / S^3.
 
-    Separately compiled XLA programs (oracle scatter vs Pallas engine) may
+    Separately compiled programs (oracle scatter vs deposit engine) may
     FMA-contract the r^2 - (ax + ay) chain differently, flipping a subcell
     compare whose margin is within ~1 ulp of r^2 — at most one S^-3 quantum
     per voxel (ops/splat.py big-particle docstring; measured one flip per
@@ -102,12 +102,11 @@ def test_dense_halfwidth_ladder():
     assert dense_halfwidth(big) == required_halfwidth(big)
 
 
-@pytest.mark.slow
 def test_splat_volume_numpy_routes_huge_to_dense():
-    """Mixed workload through the public splat_volume host path: the huge
-    tail must land on the dense pass (not the scatter oracle) and still
-    match the oracle field exactly."""
-    from nbodyhpc_tpu.ops import splat_pallas
+    """Mixed workload through the engine's host path: the huge tail must
+    land on the dense pass (not the scatter oracle) and still match the
+    oracle field."""
+    from nbodyhpc_jax.ops import deposit
 
     grid = (24, 20, 24)
     ppu = 24.0
@@ -119,26 +118,24 @@ def test_splat_volume_numpy_routes_huge_to_dense():
     r = np.concatenate(
         [
             (rng.random(16) * 0.4 / ppu),  # sub-pixel
-            ((0.6 + rng.random(16) * 5.0) / ppu),  # G8 + G16 buckets
-            ((8.0 + rng.random(16) * 6.0) / ppu),  # dense tail
+            ((0.6 + rng.random(16) * 5.0) / ppu),  # window classes
+            ((15.5 + rng.random(16) * 6.0) / ppu),  # dense tail (> 15 px)
         ]
     ).astype(np.float32)
     want = splat_volume_oracle(pos, w, r, ppu, grid)
-    got = np.asarray(
-        splat_pallas.splat_volume(pos, w, r, ppu, grid, interpret=True)
-    )
+    got = np.asarray(deposit.splat_volume(pos, w, r, ppu, grid, engine="plain"))
     np.testing.assert_allclose(
         got, want, rtol=1e-6, atol=1e-7 + _quantum_atol(w, r * ppu)
     )
 
 
 def test_splat_volume_device_class_sorted_skips_partition():
-    """Device inputs already sorted by radius class must take the
-    skip-partition path (bench.py pre-sorts on the host to avoid the
-    partition's second full-array copy) and still match the oracle."""
+    """Device inputs already sorted by radius class: the class boundaries
+    the engine's one sort finds must match the classes of the input, and
+    the render must match the oracle."""
     import jax.numpy as jnp
 
-    from nbodyhpc_tpu.ops import splat_pallas
+    from nbodyhpc_jax.ops import deposit
 
     grid = (24, 20, 24)
     ppu = 24.0
@@ -150,25 +147,26 @@ def test_splat_volume_device_class_sorted_skips_partition():
     r = np.sort(
         np.concatenate(
             [
-                (0.5 + rng.random(16) * 1.4) / ppu,    # G6 class
-                ((2.2 + rng.random(16) * 0.7) / ppu),  # G8 class
+                (0.5 + rng.random(16) * 1.4) / ppu,    # classes 0-1 (<= 2 px)
+                ((2.2 + rng.random(16) * 0.7) / ppu),  # class 2 (2, 3] px
                 ((15.5 + rng.random(16) * 4.0) / ppu),  # dense tail (> 15 px)
             ]
         ).astype(np.float32)
     )
-    # ascending radii are class-sorted; assert the detector agrees, two
-    # kernel classes are populated, and the rest of the ladder is empty
-    # (the full-ladder mixed workload is the slow-marked test below — in
-    # interpret mode the G16/G32 deposit programs alone cost minutes)
-    stats = splat_pallas._radius_stats(jnp.asarray(r), ppu)
-    assert bool(stats[2])
-    counts = np.asarray(stats[1])
-    assert counts[0] == 16 and counts[1] == 16 and counts.sum() == 32
+    counts, max_rpx = deposit.class_counts(jnp.asarray(r * ppu), jnp.asarray(w))
+    assert sum(counts[:2]) == 16 and counts[2] == 16
+    assert counts[deposit.DENSE] == 16 and sum(counts) == n
+    assert max_rpx == float(np.max(r * ppu))
+    _, bounds, _ = deposit.sort_by_class(
+        jnp.asarray(pos * ppu), jnp.asarray(w), jnp.asarray(r * ppu), grid
+    )
+    bounds = np.asarray(bounds)
+    np.testing.assert_array_equal(np.diff(bounds)[: deposit.DENSE + 1], counts)
     want = splat_volume_oracle(pos, w, r, ppu, grid)
     got = np.asarray(
-        splat_pallas.splat_volume(
+        deposit.splat_volume(
             jnp.asarray(pos), jnp.asarray(w), jnp.asarray(r), ppu, grid,
-            interpret=True,
+            engine="plain",
         )
     )
     np.testing.assert_allclose(
@@ -176,13 +174,12 @@ def test_splat_volume_device_class_sorted_skips_partition():
     )
 
 
-@pytest.mark.slow
 def test_splat_volume_device_mixed_radii():
-    """Device-resident mixed workload (sub-pixel + both buckets + huge),
-    multiple batches so the per-batch huge extraction sort is exercised."""
+    """Device-resident mixed workload (sub-pixel + window classes + huge),
+    in several batches per class."""
     import jax.numpy as jnp
 
-    from nbodyhpc_tpu.ops import splat_pallas
+    from nbodyhpc_jax.ops import deposit
 
     grid = (24, 20, 24)
     ppu = 24.0
@@ -195,17 +192,17 @@ def test_splat_volume_device_mixed_radii():
         [
             (rng.random(100) * 0.4 / ppu),
             ((0.6 + rng.random(100) * 5.0) / ppu),
-            ((8.0 + rng.random(100) * 6.0) / ppu),
+            ((8.0 + rng.random(100) * 10.0) / ppu),
         ]
     ).astype(np.float32)
-    # shuffle so every batch holds a mix (some with huge, some without)
+    # shuffle so the class sort has real work to do
     perm = rng.permutation(n)
     pos, w, r = pos[perm], w[perm], r[perm]
     want = splat_volume_oracle(pos, w, r, ppu, grid)
     got = np.asarray(
-        splat_pallas.splat_volume(
+        deposit.splat_volume(
             jnp.asarray(pos), jnp.asarray(w), jnp.asarray(r), ppu, grid,
-            batch=128, interpret=True,
+            batch=128, engine="plain",
         )
     )
     np.testing.assert_allclose(

@@ -8,14 +8,14 @@ exactly on non-degenerate data; distances are compared to ~1 ulp.
 Exactness contract: `knn_query_tree_sharded` with overflow == 0 must match
 the single-device (replicated-tree) path exactly — boundary-crossing
 candidate exchange via ppermute hops is the SURVEY §5.8 component the
-replicated path cannot provide (tree size capped at one chip's HBM)."""
+replicated path cannot provide (tree size capped at one device's memory)."""
 import jax
 import numpy as np
 import pytest
 
-from nbodyhpc_tpu.kdtree import KDTree
-from nbodyhpc_tpu.parallel.mesh import make_slab_mesh
-from nbodyhpc_tpu.parallel.tree_sharded import (
+from nbodyhpc_jax.kdtree import KDTree
+from nbodyhpc_jax.parallel.mesh import make_slab_mesh
+from nbodyhpc_jax.parallel.tree_sharded import (
     build_tree_sharded,
     knn_query_tree_sharded,
 )
@@ -215,7 +215,7 @@ def test_single_slab_periodic_z_wrap(mesh):
     """A 1-device mesh owns the whole z extent: z must bin periodically
     (wrap-adjacent cells reachable by the ladder) or every z-boundary
     query falls through to the brute backstop — at production scale that
-    was minutes of device time per chunk (measured TPU worker crash).
+    was minutes of device time per chunk.
     Exactness pinned with queries ON the z faces against scipy."""
     import jax as _jax
     import scipy.spatial as sps

@@ -9,7 +9,7 @@ import pytest
 
 
 def test_png_writer_roundtrip(tmp_path):
-    from nbodyhpc_tpu.utils.png import write_png_grayscale
+    from nbodyhpc_jax.utils.png import write_png_grayscale
 
     img = np.outer(np.arange(16), np.arange(8)).astype(np.float32)
     path = tmp_path / "t.png"
@@ -27,7 +27,7 @@ def test_png_writer_roundtrip(tmp_path):
 
 
 def test_philox_determinism():
-    from nbodyhpc_tpu.utils.philox import random_particles, random_points
+    from nbodyhpc_jax.utils.philox import random_particles, random_points
 
     a = random_points(100, seed=7)
     b = random_points(100, seed=7)
@@ -38,7 +38,7 @@ def test_philox_determinism():
 
 
 def test_knn_cdf_uniform():
-    from nbodyhpc_tpu.utils.stats import knn_cdf
+    from nbodyhpc_jax.utils.stats import knn_cdf
 
     rng = np.random.Generator(np.random.Philox(1))
     pts = rng.random((5000, 3)).astype(np.float32)
@@ -56,7 +56,7 @@ def test_knn_cdf_uniform():
 
 
 def test_kdtree_bench_cli(capsys):
-    from nbodyhpc_tpu.cli.kdtree_bench import main
+    from nbodyhpc_jax.cli.kdtree_bench import main
 
     rc = main(["--num-points", "2000", "--num-queries", "500", "-k", "4"])
     out = capsys.readouterr().out
@@ -66,7 +66,7 @@ def test_kdtree_bench_cli(capsys):
 
 
 def test_rasterizer_demo_cli(tmp_path, capsys):
-    from nbodyhpc_tpu.cli.rasterizer_demo import main
+    from nbodyhpc_jax.cli.rasterizer_demo import main
 
     png = str(tmp_path / "slice.png")
     rc = main(["--grid", "32", "--png", png])
@@ -77,7 +77,7 @@ def test_rasterizer_demo_cli(tmp_path, capsys):
 
 
 def test_rasterizer_demo_cli_file(tmp_path, capsys):
-    from nbodyhpc_tpu.cli.rasterizer_demo import main
+    from nbodyhpc_jax.cli.rasterizer_demo import main
 
     rng = np.random.Generator(np.random.Philox(9))
     n = 200
